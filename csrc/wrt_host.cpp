@@ -1,6 +1,6 @@
-// wrt_host: native host-side runtime for the TPU path tracer.
+// wrt_host: native host-side runtime for the path tracer.
 //
-// The TPU owns the compute path (JAX/XLA/Pallas kernels); this library owns
+// The device owns the compute path (JAX/XLA/Pallas kernels); this library owns
 // the host runtime around it, the role the reference implements in Rust:
 // display transform + quantization (the reference's swapchain present,
 // src/main.rs:463-473), frame encoding for streaming/storage, terminal

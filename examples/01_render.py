@@ -18,9 +18,9 @@ def main():
             "--out": dict(default="/tmp/example_render.png"),
         },
     )
-    from weekend_raytracer_tpu import (RenderParams, Renderer, SamplingParams,
+    from weekend_raytracer import (RenderParams, Renderer, SamplingParams,
                                        SCENES)
-    from weekend_raytracer_tpu.utils.image import save_png
+    from weekend_raytracer.utils.image import save_png
 
     if args.scene == "list":
         print(" ".join(SCENES))
@@ -33,7 +33,7 @@ def main():
         sampling=SamplingParams(max_samples_per_pixel=args.spp,
                                 num_samples_per_pixel=2),
     )
-    r = Renderer(build(), params)  # backend="auto" → fastest fused kernel
+    r = Renderer(build(), params)  # backend="auto": triton on a GPU, xla on a CPU
     stats = r.render()             # progressive frames to convergence
     save_png(args.out, r.image())  # tonemapped sRGB uint8 [H, W, 3]
     print(f"{args.scene} {w}x{h} spp={r.accumulated_samples()} "

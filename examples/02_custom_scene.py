@@ -11,14 +11,14 @@ from _common import parse_args
 
 def main():
     args = parse_args("render a hand-built scene")
-    from weekend_raytracer_tpu import RenderParams, Renderer, SamplingParams
-    from weekend_raytracer_tpu.models.camera import Camera
-    from weekend_raytracer_tpu.models.materials import Material
-    from weekend_raytracer_tpu.models.scenes import SceneDesc
-    from weekend_raytracer_tpu.models.sky import SkyParams
-    from weekend_raytracer_tpu.models.spheres import Sphere
-    from weekend_raytracer_tpu.models.textures import Texture
-    from weekend_raytracer_tpu.utils.image import save_png
+    from weekend_raytracer import RenderParams, Renderer, SamplingParams
+    from weekend_raytracer.models.camera import Camera
+    from weekend_raytracer.models.materials import Material
+    from weekend_raytracer.models.scenes import SceneDesc
+    from weekend_raytracer.models.sky import SkyParams
+    from weekend_raytracer.models.spheres import Sphere
+    from weekend_raytracer.models.textures import Texture
+    from weekend_raytracer.utils.image import save_png
 
     # A procedural image texture from any float RGB array (or use
     # Texture.from_image("photo.jpeg") for files).

@@ -3,7 +3,7 @@
 Pixels are embarrassingly parallel: each device owns a horizontal band of
 the accumulator for the whole render (zero steady-state communication);
 an optional spp axis renders decorrelated sample batches that merge with
-one psum over ICI (parallel/sharding.py).
+one psum (parallel/sharding.py).
 
 Run anywhere with virtual devices:
     python examples/03_multichip.py --cpu --cpu-devices 8
@@ -24,9 +24,9 @@ def main():
     )
     import jax
 
-    from weekend_raytracer_tpu import (RenderParams, Renderer, SamplingParams,
+    from weekend_raytracer import (RenderParams, Renderer, SamplingParams,
                                        SCENES)
-    from weekend_raytracer_tpu.parallel.sharding import make_mesh
+    from weekend_raytracer.parallel.sharding import make_mesh
 
     n = len(jax.devices())
     spp_shards = args.spp_shards if n % args.spp_shards == 0 else 1

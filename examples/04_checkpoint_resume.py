@@ -14,7 +14,7 @@ from _common import parse_args
 
 def main():
     parse_args("checkpoint/resume demo")
-    from weekend_raytracer_tpu import (RenderParams, Renderer, SamplingParams,
+    from weekend_raytracer import (RenderParams, Renderer, SamplingParams,
                                        SCENES)
 
     build, camera = SCENES["demo"]

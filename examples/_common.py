@@ -12,7 +12,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def parse_args(description: str, **extra):
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--cpu", action="store_true",
-                   help="run on XLA:CPU instead of the TPU")
+                   help="run on XLA:CPU instead of the GPU")
     p.add_argument("--cpu-devices", type=int, default=1, metavar="N",
                    help="with --cpu: number of virtual CPU devices "
                         "(for the mesh examples)")

@@ -1,5 +1,5 @@
 """Test shim: the NumPy oracle lives in the package (reference.py)."""
-from weekend_raytracer_tpu.reference import (  # noqa: F401
+from weekend_raytracer.reference import (  # noqa: F401
     OracleTracer,
     init_state,
     jenkins,

@@ -9,7 +9,7 @@ import math
 import numpy as np
 import pytest
 
-from weekend_raytracer_tpu.models import hw_dataset as hw
+from weekend_raytracer.models import hw_dataset as hw
 
 
 def _synthetic():
@@ -79,8 +79,8 @@ def test_to_sky_state_uses_dataset(tmp_path, monkeypatch):
     cooked state renders finite sky radiance through the evaluator."""
     import jax.numpy as jnp
 
-    from weekend_raytracer_tpu.models.sky import SkyParams, to_sky_state
-    from weekend_raytracer_tpu.ops.sky_radiance import sky_radiance
+    from weekend_raytracer.models.sky import SkyParams, to_sky_state
+    from weekend_raytracer.ops.sky_radiance import sky_radiance
 
     c, r = _synthetic()
     # keep the exponential rates (p1, p4) negative and p8 (mie g) in [0,1)
@@ -112,7 +112,7 @@ def test_to_sky_state_uses_dataset(tmp_path, monkeypatch):
 
 
 def test_missing_dataset_falls_back(monkeypatch):
-    from weekend_raytracer_tpu.models.sky import SkyParams, to_sky_state
+    from weekend_raytracer.models.sky import SkyParams, to_sky_state
 
     monkeypatch.delenv("WRT_HW_DATASET", raising=False)
     state = to_sky_state(SkyParams())
@@ -124,10 +124,10 @@ def test_renderer_hw_dataset_param(tmp_path, monkeypatch):
     env vars, reports its sky provenance, and fingerprints the cooked
     coefficients (a dataset-cooked checkpoint refuses to resume under the
     built-in fit) — VERDICT r2 #2."""
-    from weekend_raytracer_tpu import (
+    from weekend_raytracer import (
         RenderParams, Renderer, SamplingParams,
     )
-    from weekend_raytracer_tpu.models import scenes
+    from weekend_raytracer.models import scenes
 
     monkeypatch.delenv("WRT_HW_DATASET", raising=False)
     c, r = _synthetic()

@@ -4,11 +4,11 @@ import math
 import numpy as np
 import pytest
 
-from weekend_raytracer_tpu.interactive.fly_camera import (
+from weekend_raytracer.interactive.fly_camera import (
     FlyCameraController,
     camera_orientation,
 )
-from weekend_raytracer_tpu.models.angle import Angle
+from weekend_raytracer.models.angle import Angle
 
 
 def test_default_matches_reference():
@@ -87,7 +87,7 @@ def test_renderer_camera_roundtrip():
     np.testing.assert_allclose(cam.eye_dir, o.forward, atol=1e-7)
     assert cam.aperture == c.aperture
     # produces a valid validated param set
-    from weekend_raytracer_tpu import RenderParams
+    from weekend_raytracer import RenderParams
 
     RenderParams(camera=cam, viewport_size=(64, 48)).validate()
 
@@ -95,21 +95,21 @@ def test_renderer_camera_roundtrip():
 # --- CLI plumbing (headless front door) ---
 
 def test_cli_parse_size():
-    from weekend_raytracer_tpu.cli import parse_size
+    from weekend_raytracer.cli import parse_size
 
     assert parse_size("1920x1080") == (1920, 1080)
     assert parse_size("64X36") == (64, 36)
 
 
 def test_cli_unknown_scene_exits_2(capsys):
-    from weekend_raytracer_tpu.cli import main
+    from weekend_raytracer.cli import main
 
     assert main(["--scene", "bogus"]) == 2
     assert "unknown scene" in capsys.readouterr().err
 
 
 def test_cli_scene_list(capsys):
-    from weekend_raytracer_tpu.cli import main
+    from weekend_raytracer.cli import main
 
     assert main(["--scene", "list"]) == 0
     out = capsys.readouterr().out
@@ -119,9 +119,9 @@ def test_cli_scene_list(capsys):
 
 def test_viewer_keymap_updates_params():
     """Viewer key handling mutates params with validation (no render)."""
-    from weekend_raytracer_tpu.interactive.viewer import TerminalViewer
-    from weekend_raytracer_tpu.interactive.fly_camera import FlyCameraController
-    from weekend_raytracer_tpu.models import scenes
+    from weekend_raytracer.interactive.viewer import TerminalViewer
+    from weekend_raytracer.interactive.fly_camera import FlyCameraController
+    from weekend_raytracer.models import scenes
 
     v = TerminalViewer(scenes.three_spheres(), FlyCameraController(),
                        viewport=(32, 18))
@@ -140,7 +140,7 @@ def test_viewer_keymap_updates_params():
 def test_cli_spp_frame_divisor_defaults():
     """Default samples-per-frame must divide any --spp (review finding:
     min(4, spp) crashed validation for e.g. --spp 50)."""
-    import weekend_raytracer_tpu.cli as cli
+    import weekend_raytracer.cli as cli
 
     pick = lambda spp: next(d for d in (4, 2, 1) if spp % d == 0)
     assert pick(50) == 2
@@ -149,9 +149,9 @@ def test_cli_spp_frame_divisor_defaults():
 
 
 def test_viewer_ignores_empty_key():
-    from weekend_raytracer_tpu.interactive.viewer import TerminalViewer
-    from weekend_raytracer_tpu.interactive.fly_camera import FlyCameraController
-    from weekend_raytracer_tpu.models import scenes
+    from weekend_raytracer.interactive.viewer import TerminalViewer
+    from weekend_raytracer.interactive.fly_camera import FlyCameraController
+    from weekend_raytracer.models import scenes
 
     v = TerminalViewer(scenes.three_spheres(), FlyCameraController(),
                        viewport=(32, 18))
@@ -163,9 +163,9 @@ def test_viewer_mouse_drag_changes_yaw_pitch():
     """Dragging the mouse feeds set_mouse/after_events (the reference's
     RMB spherical-delta look, fly_camera.rs:125-173) — yaw and pitch move
     and the renderer's camera param updates (VERDICT r1 missing #3)."""
-    from weekend_raytracer_tpu.interactive.fly_camera import FlyCameraController
-    from weekend_raytracer_tpu.interactive.viewer import TerminalViewer
-    from weekend_raytracer_tpu.models import scenes
+    from weekend_raytracer.interactive.fly_camera import FlyCameraController
+    from weekend_raytracer.interactive.viewer import TerminalViewer
+    from weekend_raytracer.models import scenes
 
     v = TerminalViewer(scenes.three_spheres(), FlyCameraController(),
                        viewport=(32, 18))
@@ -182,9 +182,9 @@ def test_viewer_mouse_drag_changes_yaw_pitch():
 
 
 def test_viewer_mouse_move_without_press_is_noop():
-    from weekend_raytracer_tpu.interactive.fly_camera import FlyCameraController
-    from weekend_raytracer_tpu.interactive.viewer import TerminalViewer
-    from weekend_raytracer_tpu.models import scenes
+    from weekend_raytracer.interactive.fly_camera import FlyCameraController
+    from weekend_raytracer.interactive.viewer import TerminalViewer
+    from weekend_raytracer.models import scenes
 
     v = TerminalViewer(scenes.three_spheres(), FlyCameraController(),
                        viewport=(32, 18))
@@ -200,7 +200,7 @@ def test_raw_input_escape_sequences_and_eof():
     lone-ESC quits) and flag EOF instead of returning '' forever."""
     import os
 
-    from weekend_raytracer_tpu.interactive.viewer import _RawInput
+    from weekend_raytracer.interactive.viewer import _RawInput
 
     r, w = os.pipe()
     try:

@@ -1,138 +1,88 @@
-"""AOT Mosaic lowering checks (no chip needed).
+"""CUDA lowering gates for the Triton kernel (no GPU needed).
 
-Interpret-mode tests validate kernel SEMANTICS but never run Mosaic's
-MLIR verification — a kernel can pass every interpret test and still
-fail to lower on hardware (round 4 caught exactly that: the MXU sweep's
-f32 iota was rejected by `tpu.iota` at lowering, which would have
-burned an unattended chip-session slot). `jax.export` with
-platforms=["tpu"] runs the full Mosaic lowering pipeline locally, so
-every knob-combination the chip sessions exercise gets a lowering
-gate here.
-
-Each export runs in a SUBPROCESS: the TPU lowering machinery must not
-share a process with the interpret-mode tests (a full-suite run with
-in-process exports segfaulted later CPU executions twice, round 4),
-and isolation also keeps the gate honest about import-time state.
-
-These are NOT compile tests (no XLA binary is produced) — they verify
-the Pallas->Mosaic MLIR stage only, which is where kernel-language
-errors surface.
+Interpret-mode tests check the kernel's semantics but never run the
+Pallas -> Triton lowering, where unsupported operations surface (for
+example ``jnp.any``, whose reduce_or has no lowering on this route).
+``jax.export`` for ``platforms=["cuda"]`` runs that lowering on the CPU;
+the Triton compile itself, and what the GPU compiler refuses, show only on
+the card (chip_smoke.py).
 """
-import subprocess
-import sys
+from functools import partial
+from pathlib import Path
 
-_PRELUDE = """
 import jax
-jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
+import pytest
 from jax import export
-from weekend_raytracer_tpu.models import scenes
-from weekend_raytracer_tpu.models.camera import CameraBasis
-from weekend_raytracer_tpu.models.sky import SkyParams, to_sky_state
-from weekend_raytracer_tpu.ops.pallas.regroup import render_image_regrouped
 
-W, H = 192, 96
+from weekend_raytracer.models import scenes
+from weekend_raytracer.models.camera import CameraBasis
+from weekend_raytracer.models.sky import SkyParams, to_sky_state
+from weekend_raytracer.ops.pallas.gpu_megakernel import render_image_triton
 
-
-def export_tpu(fn, *args):
-    exp = export.export(jax.jit(fn), platforms=["tpu"])(*args)
-    assert "tpu_custom_call" in exp.mlir_module()
-"""
+_TRITON_CALL = "__gpu$xla.gpu.triton"
+_PACKAGE = Path(__file__).resolve().parents[1] / "weekend_raytracer"
 
 
-def _run(body: str) -> None:
-    proc = subprocess.run((sys.executable, "-c", _PRELUDE + body),
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
+def _export_cuda(fn, *args):
+    exp = export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[export.DisabledSafetyCheck.custom_call(
+            _TRITON_CALL)],
+    )(*args)
+    return exp.mlir_module()
 
 
-def test_regroup_mxu_dyn_grid_lowers_for_tpu():
-    """The most knob-loaded fused config: MXU chunk sweep in K0 AND K1,
-    dynamic grid bounds on pack/K1/combine, the windowed-matmul combine
-    level, and the matmul-merge pack. One export covers all four
-    kernels' Mosaic lowering (the v1 combine/pack kernels keep their
-    gate via the textured test below)."""
-    _run("""
-scene = scenes.rtiow_final().build()
-basis = CameraBasis.create(scenes.rtiow_final_camera(), (W, H))
-sky = to_sky_state(SkyParams())
-accum = jnp.zeros((W * H, 3), jnp.float32)
+def _frame_args(name, w, h):
+    scene = scenes.SCENES[name][0]().build()
+    basis = CameraBasis.create(scenes.SCENES[name][1](), (w, h))
+    return (jax.ShapeDtypeStruct((w * h, 3), jnp.float32), jnp.uint32(0),
+            jnp.bool_(True), scene, to_sky_state(SkyParams()), basis)
 
 
-def f(accum, frame, clear, scene, sky):
-    return render_image_regrouped(
-        accum, frame, clear, scene, sky, basis, width=W, height=H,
-        spp=8, num_bounces=8, cuts=(2, 4), interpret=False,
-        mxu_sweep=True, dyn_grid=True, combine_v2=True, pack_v2=True)
+@pytest.mark.parametrize("name,size", [
+    ("rtiow", (1920, 1080)),
+    ("random10k", (3840, 2160)),
+    ("textured", (1920, 1080)),
+    ("three", (1280, 720)),
+])
+def test_kernel_lowers_for_cuda_at_full_size(name, size):
+    w, h = size
+    mlir = _export_cuda(
+        partial(render_image_triton, width=w, height=h, spp=4,
+                num_bounces=8),
+        *_frame_args(name, w, h))
+    assert mlir.count(_TRITON_CALL) == 1
 
 
-export_tpu(f, accum, jnp.uint32(0), jnp.asarray(True), scene, sky)
-""")
+def test_shard_band_lowers_for_cuda():
+    """A mesh shard's call: a traced row offset into a taller image."""
+    w, h = 1920, 270
+
+    def band(accum, frame, clear, scene, sky, basis, row):
+        return render_image_triton(accum, frame, clear, scene, sky, basis,
+                                   width=w, height=h, spp=2, num_bounces=8,
+                                   row_offset=row, full_height=1080)
+
+    mlir = _export_cuda(band, *_frame_args("rtiow", w, h), jnp.int32(540))
+    assert _TRITON_CALL in mlir
 
 
-def test_textured_regroup_mxu_lowers_for_tpu():
-    """Texture LUT + retrieval LUT + MXU sweep together (the textured
-    ladder config's engine with the knob on)."""
-    _run("""
-scene = scenes.reference_demo().build()
-basis = CameraBasis.create(scenes.reference_demo_camera(), (W, H))
-sky = to_sky_state(SkyParams())
-accum = jnp.zeros((W * H, 3), jnp.float32)
+@pytest.mark.parametrize("block,num_warps", [(128, 4), (256, 8)])
+def test_kernel_lowers_for_other_launch_shapes(block, num_warps):
+    w, h = 640, 360
+    mlir = _export_cuda(
+        partial(render_image_triton, width=w, height=h, spp=1,
+                num_bounces=4, block=block, num_warps=num_warps),
+        *_frame_args("rtiow", w, h))
+    assert _TRITON_CALL in mlir
 
 
-def f(accum, frame, clear, scene, sky):
-    return render_image_regrouped(
-        accum, frame, clear, scene, sky, basis, width=W, height=H,
-        spp=8, num_bounces=8, cuts=(2,), interpret=False,
-        mxu_sweep=True)
-
-
-export_tpu(f, accum, jnp.uint32(0), jnp.asarray(True), scene, sky)
-""")
-
-
-def test_skip_dead_regroup_lowers_for_tpu():
-    """skip_dead's indirect pack + indirect final-combine kernels (the
-    prefetched live-tile-list block maps) must pass Mosaic lowering
-    before any chip session prices the knob (repo rule: AOT-lower every
-    new kernel/knob at production shapes before queueing chip time)."""
-    _run("""
-scene = scenes.rtiow_final().build()
-basis = CameraBasis.create(scenes.rtiow_final_camera(), (W, H))
-sky = to_sky_state(SkyParams())
-accum = jnp.zeros((W * H, 3), jnp.float32)
-
-
-def f(accum, frame, clear, scene, sky):
-    return render_image_regrouped(
-        accum, frame, clear, scene, sky, basis, width=W, height=H,
-        spp=8, num_bounces=8, cuts=(2, 4), interpret=False,
-        dyn_grid=True, skip_dead=True)
-
-
-export_tpu(f, accum, jnp.uint32(0), jnp.asarray(True), scene, sky)
-""")
-
-
-def test_rowsweep_regroup_lowers_for_tpu():
-    """Row-granular K1 traversal (round 5): the per-row mask roll
-    reductions, rank-select binary search, one-hot table matmul, and
-    constant-index lane gathers must all pass Mosaic lowering at a
-    production-shaped config before any chip session prices the knob."""
-    _run("""
-scene = scenes.rtiow_final().build()
-basis = CameraBasis.create(scenes.rtiow_final_camera(), (W, H))
-sky = to_sky_state(SkyParams())
-accum = jnp.zeros((W * H, 3), jnp.float32)
-
-
-def f(accum, frame, clear, scene, sky):
-    return render_image_regrouped(
-        accum, frame, clear, scene, sky, basis, width=W, height=H,
-        spp=8, num_bounces=8, cuts=(2, 4), interpret=False,
-        dyn_grid=True, rowsweep=True, rowsweep_k0=True, k1_tsub=8,
-        k1_chunk_size=8)
-
-
-export_tpu(f, accum, jnp.uint32(0), jnp.asarray(True), scene, sky)
-""")
+def test_every_pallas_call_names_the_triton_route():
+    """The default route of pallas_call in this JAX is Mosaic GPU; every
+    kernel in the package names Triton."""
+    sources = {p: p.read_text() for p in _PACKAGE.rglob("*.py")}
+    calls = {p: s for p, s in sources.items() if "pallas_call(" in s}
+    assert calls, "no pallas_call found"
+    for path, src in calls.items():
+        assert src.count("pallas_call(") == src.count('backend="triton"'), path

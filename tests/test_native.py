@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from weekend_raytracer_tpu.utils import native
+from weekend_raytracer.utils import native
 
 
 def test_library_builds_and_loads():
@@ -14,7 +14,7 @@ def test_library_builds_and_loads():
 def test_tonemap_matches_device_path():
     import jax.numpy as jnp
 
-    from weekend_raytracer_tpu.ops.tonemap import to_srgb_u8
+    from weekend_raytracer.ops.tonemap import to_srgb_u8
 
     rs = np.random.RandomState(0)
     x = (rs.rand(64, 32, 3) * 20.0).astype(np.float32)
@@ -27,7 +27,7 @@ def test_tonemap_matches_device_path():
 def test_morton_argsort_matches_jnp():
     import jax.numpy as jnp
 
-    from weekend_raytracer_tpu.ops.bvh import morton_codes
+    from weekend_raytracer.ops.bvh import morton_codes
 
     rs = np.random.RandomState(1)
     c = (rs.rand(500, 3) * 100 - 50).astype(np.float32)
@@ -43,7 +43,7 @@ def test_morton_argsort_matches_jnp():
 
 
 def test_halfblock_render_matches_python():
-    from weekend_raytracer_tpu.interactive.viewer import _halfblock_frame
+    from weekend_raytracer.interactive.viewer import _halfblock_frame
 
     rs = np.random.RandomState(2)
     img = (rs.rand(8, 6, 3) * 255).astype(np.uint8)

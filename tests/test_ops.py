@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from weekend_raytracer_tpu.models.materials import Material, MaterialTable
-from weekend_raytracer_tpu.models.sky import SkyParams, SkyState, to_sky_state
-from weekend_raytracer_tpu.models.spheres import Sphere, SphereSoA
-from weekend_raytracer_tpu.ops import rng, tonemap
-from weekend_raytracer_tpu.ops.intersect import MAX_T, hit_record, intersect
-from weekend_raytracer_tpu.ops.scatter import (
+from weekend_raytracer.models.materials import Material, MaterialTable
+from weekend_raytracer.models.sky import SkyParams, SkyState, to_sky_state
+from weekend_raytracer.models.spheres import Sphere, SphereSoA
+from weekend_raytracer.ops import rng, tonemap
+from weekend_raytracer.ops.intersect import MAX_T, hit_record, intersect
+from weekend_raytracer.ops.scatter import (
     cosine_hemisphere_dir,
     pixar_onb,
     reflect,
@@ -20,7 +20,7 @@ from weekend_raytracer_tpu.ops.scatter import (
     texture_lookup,
     unit_sphere_sample,
 )
-from weekend_raytracer_tpu.ops.sky_radiance import sky_radiance
+from weekend_raytracer.ops.sky_radiance import sky_radiance
 
 
 # --- RNG ---
@@ -293,7 +293,7 @@ def test_scatter_unknown_material_is_pink():
     table = MaterialTable.build([Material.lambertian((1, 1, 1))])
     table = table.tree_unflatten(None, (
         jnp.array([7], dtype=jnp.int32),  # unknown id
-        table.tex1, table.tex2, table.x, table.pool, table.albedo1, table.albedo2,
+        table.tex1, table.tex2, table.x, table.pool,
     ))
     out = scatter(
         jnp.array([[0.0, 0.0, -1.0]]), jnp.array([[0.0, 0.0, 1.0]]),
@@ -309,7 +309,7 @@ def test_texture_lookup_image():
     img = np.zeros((2, 4, 3), dtype=np.float32)
     img[0, 0] = [1, 0, 0]   # top-left
     img[1, 3] = [0, 0, 1]   # bottom-right
-    from weekend_raytracer_tpu.models.textures import Texture, TexturePool
+    from weekend_raytracer.models.textures import Texture, TexturePool
 
     pool = TexturePool()
     desc = pool.add(Texture(img))
@@ -459,7 +459,7 @@ def test_sky_accepts_list_albedo_and_caches_azimuth_free():
     to tuples before the cache) and must not refit per azimuth."""
     import time
 
-    from weekend_raytracer_tpu.models.sky import _fit_channels
+    from weekend_raytracer.models.sky import _fit_channels
 
     s1 = to_sky_state(SkyParams(albedo=[0.5, 0.5, 0.5]))  # list: must not raise
     assert s1.params.shape == (3, 9)

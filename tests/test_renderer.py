@@ -5,15 +5,16 @@ import dataclasses
 import numpy as np
 import pytest
 
-from weekend_raytracer_tpu import (
+from weekend_raytracer import (
     RenderParams,
     RenderParamsValidationError,
     Renderer,
     RenderProgress,
     SamplingParams,
 )
-from weekend_raytracer_tpu.models import scenes
-from weekend_raytracer_tpu.models.sky import SkyParams
+from weekend_raytracer.models import scenes
+from weekend_raytracer.models.sky import SkyParams
+from weekend_raytracer.renderer import resolve_backend
 
 
 def _renderer(max_spp=8, spp=2, bounces=4, size=(32, 18)):
@@ -107,7 +108,7 @@ def test_param_no_change_is_noop():
 
 
 def test_param_invalid_rejected():
-    from weekend_raytracer_tpu import RenderParamsValidationError
+    from weekend_raytracer import RenderParamsValidationError
 
     r = _renderer()
     bad = dataclasses.replace(
@@ -180,7 +181,7 @@ def test_checkpoint_viewport_mismatch(tmp_path):
 def test_checkpoint_scene_mismatch(tmp_path):
     """A checkpoint saved for one scene must refuse to resume into a
     renderer with different scene/camera/sky state (VERDICT r1 #6)."""
-    from weekend_raytracer_tpu import CheckpointMismatchError
+    from weekend_raytracer import CheckpointMismatchError
 
     a = _renderer()
     a.render_frame()
@@ -232,166 +233,69 @@ def test_render_stats_warmup():
     assert stats.rays_per_sec > 0
 
 
-def test_pallas_backend_renders_image_textures():
-    """backend='auto' now picks the fused kernel even for image-textured
-    scenes (in-kernel mipped texture LUT, VERDICT r1 #2); the result must
-    statistically match the full-resolution XLA gather path."""
-    import numpy as np
+# --- backend choice by platform ---
 
-    desc = scenes.textured_spheres()
-    params = RenderParams(
-        camera=scenes.textured_spheres_camera(),
-        viewport_size=(64, 36),
-        sampling=SamplingParams(max_samples_per_pixel=4,
-                                num_samples_per_pixel=4, num_bounces=6),
-    )
-    rp = Renderer(desc, params, backend="auto")
-    assert rp.backend in ("pallas", "wavefront", "regroup")
-    rp.render()
-    rx = Renderer(desc, params, backend="xla")
-    rx.render()
-    a = np.asarray(rp.mean_radiance())
-    b = np.asarray(rx.mean_radiance())
-    rel = abs(a.mean() - b.mean()) / b.mean()
-    assert rel < 5e-3, rel
-    assert np.isclose(a, b, rtol=2e-2, atol=2e-3).all(-1).mean() > 0.9
+@pytest.mark.parametrize("backend,platform,want", [
+    ("auto", "gpu", "triton"),
+    ("auto", "cpu", "xla"),
+    ("xla", "gpu", "xla"),
+    ("xla", "cpu", "xla"),
+    ("triton", "gpu", "triton"),
+])
+def test_resolve_backend(backend, platform, want):
+    assert resolve_backend(backend, platform) == want
 
 
-def test_texture_budget_plumbs_through_renderer():
-    """budget_texels reaches the fused kernels (different budgets mip the
-    LUT differently -> different images on a textured scene) and is part
-    of the estimator fingerprint, so checkpoints can't silently blend
-    samples taken at different texture resolutions (VERDICT r2 #3)."""
-    desc = scenes.textured_spheres()
-    params = RenderParams(
-        camera=scenes.textured_spheres_camera(),
-        viewport_size=(64, 36),
-        sampling=SamplingParams(max_samples_per_pixel=4,
-                                num_samples_per_pixel=4, num_bounces=4),
-    )
-    r_lo = Renderer(desc, params, backend="pallas", budget_texels=512)
-    r_hi = Renderer(desc, params, backend="pallas", budget_texels=8192)
-    assert r_lo._fingerprint() != r_hi._fingerprint()
-    r_lo.render()
-    r_hi.render()
-    a, b = np.asarray(r_lo.mean_radiance()), np.asarray(r_hi.mean_radiance())
-    assert not np.array_equal(a, b)
-    # still statistically the same picture
-    assert abs(a.mean() - b.mean()) / b.mean() < 2e-2
-
-
-def test_regroup_backend_matches_wavefront_through_renderer():
-    """The regrouped tracer is a drop-in Renderer backend ('auto' default
-    for pow2 spp) and bit-matches the uncompacted wavefront frames."""
-    import numpy as np
-
-    desc = scenes.reference_demo()
-    params = RenderParams(
-        camera=scenes.reference_demo_camera(),
-        viewport_size=(64, 36),
-        sampling=SamplingParams(max_samples_per_pixel=8,
-                                num_samples_per_pixel=4, num_bounces=5),
-    )
-    ra = Renderer(desc, params, backend="auto")
-    assert ra.backend == "regroup"
-    ra.render()
-    rw = Renderer(desc, params, backend="wavefront")
-    rw.render()
-    np.testing.assert_array_equal(np.asarray(ra.image()),
-                                  np.asarray(rw.image()))
-
-    # too-shallow bounce budgets can't cut: auto falls back to the
-    # megakernel (wavefront is an internal test oracle, never auto-picked)
-    shallow = RenderParams(
-        camera=scenes.reference_demo_camera(),
-        viewport_size=(64, 36),
-        sampling=SamplingParams(max_samples_per_pixel=4,
-                                num_samples_per_pixel=4, num_bounces=1),
-    )
-    assert Renderer(desc, shallow, backend="auto").backend == "pallas"
-    # explicit regroup with uncuttable params fails at construction with a
-    # typed error, not at the first frame deep inside the kernel (ADVICE r2)
+@pytest.mark.parametrize("platform", ["rocm", "metal", "cuda"])
+def test_unsupported_platform_is_refused(platform):
+    """Only the platform names JAX reports for a GPU and a CPU are
+    supported; anything else is an error, never a default."""
     with pytest.raises(RenderParamsValidationError):
-        Renderer(desc, shallow, backend="regroup")
-    odd = RenderParams(
-        camera=scenes.reference_demo_camera(),
-        viewport_size=(64, 36),
-        sampling=SamplingParams(max_samples_per_pixel=6,
-                                num_samples_per_pixel=6, num_bounces=5),
-    )
+        resolve_backend("auto", platform)
+
+
+@pytest.mark.parametrize("backend", ["mosaic", "interpret", "cpu", ""])
+def test_unknown_backend_is_refused(backend):
     with pytest.raises(RenderParamsValidationError):
-        Renderer(desc, odd, backend="regroup")
+        resolve_backend(backend, "gpu")
 
 
-def test_checkpoint_resumes_across_fused_backends(tmp_path):
-    """The fused backends draw identical per-sample radiances, so the
-    fingerprint hashes the estimator family, not the engine: a
-    pallas-saved checkpoint resumes under regroup (VERDICT r2 weak #4).
-    Frame sums reassociate across kernels (the megakernel accumulates spp
-    in-kernel, regroup in XLA), so agreement is last-ulp, not bitwise."""
-    a = _renderer(max_spp=8, spp=4)
-    a = Renderer(scenes.three_spheres(), a.params, backend="pallas")
-    a.render_frame()
-    path = str(tmp_path / "ckpt.npz")
-    a.save_checkpoint(path)
-    while a.render_frame():
-        pass
-
-    b = Renderer(scenes.three_spheres(), a.params, backend="regroup")
-    b.load_checkpoint(path)
-    assert b.accumulated_samples() == 4
-    while b.render_frame():
-        pass
-    np.testing.assert_allclose(np.asarray(a._accum), np.asarray(b._accum),
-                               rtol=1e-5, atol=1e-5)
-
-
-def test_auto_backend_reresolves_on_param_update():
-    """set_render_params must re-run auto backend selection: an update to
-    a non-power-of-two spp (or too-shallow bounces) would otherwise crash
-    the next frame inside the frozen regroup backend (review r2)."""
-    desc = scenes.three_spheres()
-    params = RenderParams(
-        camera=scenes.three_spheres_camera(),
-        viewport_size=(32, 18),
-        sampling=SamplingParams(max_samples_per_pixel=12,
-                                num_samples_per_pixel=4, num_bounces=5),
-    )
-    r = Renderer(desc, params, backend="auto")
-    assert r.backend == "regroup"
-    new = dataclasses.replace(
-        params, sampling=dataclasses.replace(params.sampling,
-                                             num_samples_per_pixel=6))
-    assert r.set_render_params(new)
-    assert r.backend == "pallas"
+def test_auto_picks_xla_on_cpu():
+    r = _renderer()
+    assert r.backend == "xla"
     assert r.render_frame()
 
 
-def test_resolved_mxu_sweep_precedence(monkeypatch):
-    """MXU-engine resolution: explicit knob > WRT_MXU_SWEEP env > scene-
-    size default (MXU_DEFAULT_MIN_SPHERES, None = never). The resolved
-    flag feeds the checkpoint fingerprint and every reported number's
-    "sweep" field, so the precedence is contract, not convenience."""
-    from weekend_raytracer_tpu.ops.pallas import megakernel as mk
+def test_gpu_only_backend_refused_on_cpu():
+    """An explicit backend that cannot run here raises up front; it never
+    falls back to another backend or to interpret mode."""
+    params = _renderer().params
+    with pytest.raises(RenderParamsValidationError):
+        Renderer(scenes.three_spheres(), params, backend="triton")
 
-    params = RenderParams(
-        camera=scenes.three_spheres_camera(),
-        viewport_size=(32, 18),
-        sampling=SamplingParams(max_samples_per_pixel=4,
-                                num_samples_per_pixel=4, num_bounces=4),
-    )
-    r = Renderer(scenes.three_spheres(), params, backend="xla")
-    monkeypatch.delenv("WRT_MXU_SWEEP", raising=False)
-    assert r.resolved_mxu_sweep() is False          # default: never
-    monkeypatch.setattr(mk, "MXU_DEFAULT_MIN_SPHERES", 2)
-    assert r.resolved_mxu_sweep() is True           # 3 spheres >= 2
-    monkeypatch.setattr(mk, "MXU_DEFAULT_MIN_SPHERES", 100)
-    assert r.resolved_mxu_sweep() is False
-    monkeypatch.setattr(mk, "MXU_DEFAULT_MIN_SPHERES", 2)
-    monkeypatch.setenv("WRT_MXU_SWEEP", "0")        # env beats scene size
-    assert r.resolved_mxu_sweep() is False
-    monkeypatch.setenv("WRT_MXU_SWEEP", "1")
-    assert r.resolved_mxu_sweep() is True
-    explicit = Renderer(scenes.three_spheres(), params, backend="xla",
-                        mxu_sweep=False)
-    assert explicit.resolved_mxu_sweep() is False   # knob beats env
+
+def test_set_render_params_keeps_the_platform_choice():
+    r = _renderer()
+    new = dataclasses.replace(
+        r.params, sampling=dataclasses.replace(r.params.sampling,
+                                               num_samples_per_pixel=4))
+    assert r.set_render_params(new)
+    assert r.backend == "xla"
+    assert r.render_frame()
+
+
+def test_checkpoint_fingerprint_ignores_backend():
+    """Both backends draw the same per-sample paths, so a checkpoint saved
+    under one resumes under the other."""
+    r = _renderer()
+    xla = r._fingerprint()
+    r.backend = "triton"
+    assert r._fingerprint() == xla
+
+
+def test_sync_waits_for_queued_frames():
+    r = _renderer(max_spp=4, spp=2)
+    r.render_frame()
+    r.render_frame()
+    r.sync()
+    assert r._accum.is_ready()

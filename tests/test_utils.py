@@ -6,9 +6,9 @@ import time
 import numpy as np
 import pytest
 
-from weekend_raytracer_tpu.utils.image import _save_png_pure, save_png, save_ppm
-from weekend_raytracer_tpu.utils.log import JsonFormatter, get_logger, log_event
-from weekend_raytracer_tpu.utils.metrics import FpsCounter, StepTimer, profiler_trace
+from weekend_raytracer.utils.image import _save_png_pure, save_png, save_ppm
+from weekend_raytracer.utils.log import JsonFormatter, get_logger, log_event
+from weekend_raytracer.utils.metrics import FpsCounter, StepTimer, profiler_trace
 
 
 def test_fps_counter_window():
@@ -38,7 +38,7 @@ def test_profiler_trace_noop():
 
 
 def test_json_log_fields(capsys):
-    rec = logging.LogRecord("weekend_raytracer_tpu.x", logging.INFO, "f", 1,
+    rec = logging.LogRecord("weekend_raytracer.x", logging.INFO, "f", 1,
                             "hello %s", ("world",), None)
     rec.fields = {"rays": 42}
     line = JsonFormatter().format(rec)
@@ -51,7 +51,7 @@ def test_json_log_fields(capsys):
 def test_get_logger_singleton_handler():
     a = get_logger("one")
     b = get_logger("two")
-    root = logging.getLogger("weekend_raytracer_tpu")
+    root = logging.getLogger("weekend_raytracer")
     assert len(root.handlers) == 1
     log_event(a, "evt", x=1)  # must not raise
 
@@ -79,7 +79,7 @@ def test_save_ppm(tmp_path):
 def test_multihost_single_process():
     import jax
 
-    from weekend_raytracer_tpu.parallel import multihost
+    from weekend_raytracer.parallel import multihost
 
     multihost.initialize(num_processes=1)  # no-op path
     mesh = multihost.global_mesh()
@@ -89,3 +89,88 @@ def test_multihost_single_process():
     acc = jnp.ones((6 * 4, 3), jnp.float32)
     out = multihost.gather_frame(acc, width=6, height=4)
     assert out is not None and out.shape == (24, 3)
+
+
+# --- persistent compilation cache directory ---
+
+@pytest.fixture
+def cache_config():
+    import jax
+
+    saved = jax.config.jax_compilation_cache_dir
+    yield jax.config
+    jax.config.update("jax_compilation_cache_dir", saved)
+
+
+def test_cache_dir_follows_the_environment(monkeypatch, cache_config,
+                                           tmp_path):
+    from weekend_raytracer.utils import cache
+
+    monkeypatch.setenv(cache.ENV_VAR, str(tmp_path))
+    cache_config.update("jax_compilation_cache_dir", None)
+    cache.enable_persistent_cache()
+    # JAX reads the variable itself; no other directory is set in code
+    assert cache_config.jax_compilation_cache_dir is None
+
+
+def test_cache_dir_defaults_into_the_checkout(monkeypatch, cache_config):
+    import os
+
+    from weekend_raytracer.utils import cache
+
+    monkeypatch.delenv(cache.ENV_VAR, raising=False)
+    cache_config.update("jax_compilation_cache_dir", None)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert cache.DEFAULT_DIR == os.path.join(repo, ".jax_cache")
+    cache.enable_persistent_cache()
+    assert cache_config.jax_compilation_cache_dir == cache.DEFAULT_DIR
+
+
+def test_cache_dir_set_by_the_caller_is_kept(monkeypatch, cache_config,
+                                             tmp_path):
+    from weekend_raytracer.utils import cache
+
+    monkeypatch.delenv(cache.ENV_VAR, raising=False)
+    cache_config.update("jax_compilation_cache_dir", str(tmp_path))
+    cache.enable_persistent_cache()
+    assert cache_config.jax_compilation_cache_dir == str(tmp_path)
+
+
+# --- device stamps for measurements ---
+
+def test_require_gpu_refuses_the_cpu():
+    from weekend_raytracer.utils.metrics import NoGpuError, require_gpu
+
+    with pytest.raises(NoGpuError):
+        require_gpu()
+
+
+def test_card_name_and_power_limit_reads_nvidia_smi(monkeypatch):
+    import subprocess
+
+    from weekend_raytracer.utils import metrics
+
+    seen = {}
+
+    def fake_run(cmd, **kw):
+        seen["cmd"] = cmd
+        return subprocess.CompletedProcess(
+            cmd, 0, stdout="NVIDIA H100 80GB HBM3, 700.00 W\n", stderr="")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    assert metrics.card_name_and_power_limit() == (
+        "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert "--query-gpu=name,power.limit" in seen["cmd"]
+
+
+def test_device_stamp_fields(monkeypatch):
+    from weekend_raytracer.utils import metrics
+
+    monkeypatch.setattr(metrics, "card_name_and_power_limit",
+                        lambda: "card, 1.00 W")
+    stamp = metrics.device_stamp("xla")
+    assert stamp["platform"] == "cpu"
+    assert stamp["device_count"] == 8
+    assert stamp["card"] == "card, 1.00 W"
+    assert stamp["backend"] == "xla"
+    assert stamp["device_kind"]
